@@ -47,10 +47,9 @@ def main() -> int:
 
     # [2] envelope + spectrum (investigate_data.jl:37-46).  The capture goes
     # to the device as PLANAR (2, N) float32 (host de-interleave) and is
-    # re-assembled to complex inside the jitted program — complex
-    # host->device transfers are unimplemented on some TPU runtimes, and
-    # strided on-device de-interleave lowers pathologically there (see
-    # ops/demod.py).
+    # re-assembled to complex inside the jitted program — no complex dtype
+    # crosses the host->device boundary and the device does no strided
+    # de-interleave (see ops/demod.py).
     from tempest_tpu.ops.demod import to_planar_iq
 
     env = np.abs(iq).astype(np.float32)

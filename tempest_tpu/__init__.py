@@ -1,6 +1,6 @@
-"""tempest_tpu — a TPU-native TEMPEST signal-processing framework.
+"""tempest_tpu — a JAX TEMPEST signal-processing framework.
 
-Brand-new JAX/XLA/Pallas re-design with the capabilities of
+Brand-new JAX/XLA re-design with the capabilities of
 JuliaTelecom/TempestSDR.jl (see SURVEY.md): raw IQ blocks stream into a fused,
 jitted signal chain — AM envelope demodulation, FFT autocorrelation for
 refresh-rate and line-count estimation, video-mode inference, resampling locked

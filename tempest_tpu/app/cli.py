@@ -417,8 +417,8 @@ def cmd_search(args: argparse.Namespace) -> int:
     cands = candidate_modes(timing.refresh_hz, tol_hz=args.tol)
     if args.dynamic:
         # Sharded dynamic-geometry scoring: the genuinely multi-device path
-        # (candidates sharded over the mesh), but its dynamic gathers measure
-        # ~0.02 Msps on TPU (docs/performance.md) — opt-in only.
+        # (candidates sharded over the mesh), built on per-element dynamic
+        # gathers — opt-in only.
         print(f"fv = {timing.refresh_hz:.4f} Hz; scoring {len(cands)} "
               f"candidate modes on {args.devices or 'all'} devices")
         mesh = make_mesh(args.devices)
@@ -426,8 +426,8 @@ def cmd_search(args: argparse.Namespace) -> int:
                                   n_frames=args.frames or 2)
     else:
         # Default: static-table scoring — same winners, same scoring
-        # semantics, ~90x faster on TPU (stacked mxu3 tables, no dynamic
-        # gathers); also what auto_reconstruct(refine_with_search=True) uses.
+        # semantics, stacked mxu3 tables instead of dynamic gathers; also
+        # what auto_reconstruct(refine_with_search=True) uses.
         from ..parallel.sharded import mode_search_static
 
         print(f"fv = {timing.refresh_hz:.4f} Hz; static-table scoring "
@@ -481,8 +481,9 @@ def cmd_warmup(args: argparse.Namespace) -> int:
     """Precompile the reconstruction programs for the given modes/rate so a
     live session starts hot — the role PackageCompiler sysimages play for the
     reference (``production/script_compilation.jl``,
-    ``docs/src/precompilation.md``).  Combine with
-    ``JAX_COMPILATION_CACHE_DIR`` to persist across processes."""
+    ``docs/src/precompilation.md``).  Compiled programs persist in the
+    compilation cache (``utils.compile_cache``: ``JAX_COMPILATION_CACHE_DIR``
+    or ``<checkout>/.jax_cache``), so a later process starts hot."""
     import time as _time
 
     import jax
@@ -495,8 +496,6 @@ def cmd_warmup(args: argparse.Namespace) -> int:
     )
     from ..video.modes import ALL_VIDEO_MODES
 
-    if args.cache_dir:
-        jax.config.update("jax_compilation_cache_dir", args.cache_dir)
     mode_names = args.modes or ["1920x1080 @ 60Hz"]
     for name in mode_names:
         mode = ALL_VIDEO_MODES[name]
@@ -693,8 +692,8 @@ def cmd_modes(args: argparse.Namespace) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        prog="tempest-tpu",
-        description="TPU-native TEMPEST screen-emanation reconstruction "
+        prog="tempest_tpu",
+        description="TEMPEST screen-emanation reconstruction "
                     "(authorized security research use)",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -747,10 +746,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--subpixel", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="sub-pixel sync registration (parabolic peak + "
-                        "MXU shift-operator matmuls) — shift-and-add "
-                        "accumulation; default ON since round 4 (faster "
-                        "than integer rolls AND +0.4-0.5 dB); "
-                        "--no-subpixel restores integer circshift")
+                        "shift-operator matmuls) — shift-and-add "
+                        "accumulation; default ON (+0.4-0.5 dB over "
+                        "integer rolls); --no-subpixel restores integer "
+                        "circshift")
     p.add_argument("--search", action="store_true",
                    help="refine the detected mode by sharded sync-score search")
     p.add_argument("--pick-line-peak", type=int, default=None, metavar="N",
@@ -826,7 +825,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(displayScreen_vsync! parity)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="stream through the N-device mesh runtime (each "
-                        "block split into N time spans, halos over ICI; "
+                        "block split into N time spans, ppermute halos; "
                         "--combine shards the carriers across the same "
                         "mesh, --fidelity runs the quantised exact-cut "
                         "tables with per-shard bins)")
@@ -843,7 +842,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fractional-phase quantisation of the mxu resamplers")
     p.add_argument("--interp-taps", type=int, default=None, choices=[2, 4],
                    help="interpolation order: 2=linear, 4=Catmull-Rom "
-                        "(see docs/performance.md for when 4 helps)")
+                        "(4 helps at >= 1 sample per raster pixel)")
     p.add_argument("--combine", default=None, metavar="AUTO|F1,F2,...",
                    help="live multi-harmonic fusion: channelise every block "
                         "at these carrier offsets [Hz] and reconstruct the "
@@ -862,8 +861,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="live CW excision margin over the carrier peak "
                         "(dB) in the combine front")
     p.add_argument("--einsum-bf16", action="store_true",
-                   help="weights einsum in bf16 — bit-exact on TPU (its f32 "
-                        "matmuls run bf16 passes anyway), ~2%% faster "
+                   help="weights einsum in bf16 (f32 accumulation): half "
+                        "the weight bytes at ≤2^-9 coefficient rounding "
                         "(bench.py's judged config)")
     p.set_defaults(fn=cmd_stream)
 
@@ -876,8 +875,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--devices", type=int, default=None)
     p.add_argument("--dynamic", action="store_true",
                    help="sharded dynamic-geometry scoring across the device "
-                        "mesh (multi-device; ~90x slower than the default "
-                        "static-table path on TPU)")
+                        "mesh (multi-device; per-element gathers, slower "
+                        "than the default static-table path)")
     p.add_argument("--fast", action="store_true",
                    help="(deprecated, now the default) static-table scoring")
     p.set_defaults(fn=cmd_search)
@@ -951,8 +950,6 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("--modes", nargs="*", default=None)
     p.add_argument("--frames", type=int, default=6)
-    p.add_argument("--cache-dir", default=None,
-                   help="persist compiled executables (JAX compilation cache)")
     p.set_defaults(fn=cmd_warmup)
 
     p = sub.add_parser("modes", help="list the video-mode database")
@@ -961,7 +958,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
+    from ..utils.compile_cache import configure_compile_cache
+
     args = build_parser().parse_args(argv)
+    configure_compile_cache()
     return args.fn(args)
 
 

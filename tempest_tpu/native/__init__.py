@@ -1,9 +1,17 @@
 """Native host core: C++ ring buffer + sample conversion, via ctypes.
 
-Builds ``host_core.cpp`` into ``libhost_core.so`` on first import (g++, a few
-hundred ms, cached next to the source) and exposes it through ctypes.  If no
-compiler is available the callers fall back to the pure-Python/numpy
+Builds ``host_core.cpp`` into ``_build/libhost_core-<key>.so`` on first use
+(g++, a few hundred ms, cached beside the source) and exposes it through
+ctypes.  ``_build`` is no Python package, so walking the package's modules
+never tries to import the library as an extension module.  If
+no compiler is available the callers fall back to the pure-Python/numpy
 implementations (``tempest_tpu.runtime.ring``) — same semantics, GIL held.
+
+The build is portable (no ``-march=native``: the ring's copies and the
+int16 conversion are memory-bound, and a library tuned for one CPU can kill
+the process with an illegal instruction on another).  The file name carries
+a key over the source and the compiler flags, so an edited source is never
+served by a stale library.
 
 ``NativeRing`` mirrors ``runtime.ring.RingBuffer``'s interface so the
 streaming runtime can use either.
@@ -12,31 +20,49 @@ streaming runtime can use either.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
 
 import numpy as np
 
-__all__ = ["load_host_core", "native_available", "NativeRing"]
+__all__ = ["load_host_core", "native_available", "NativeRing", "library_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "host_core.cpp")
-_LIB = os.path.join(_HERE, "libhost_core.so")
+_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _tried = False
 
 
-def _build() -> bool:
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-o", _LIB, _SRC, "-lpthread",
-    ]
+def library_path(src: str | None = None) -> str:
+    """Where the library built from ``src`` (default: ``host_core.cpp``)
+    lives."""
+    src = src or _SRC
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(_FLAGS).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(os.path.dirname(src), "_build",
+                        f"lib{stem}-{h.hexdigest()[:16]}.so")
+
+
+def _build(src: str, out: str) -> bool:
+    # Build to a private name and rename into place: concurrent processes
+    # (test workers) never load a half-written library.
+    tmp = f"{out}.{os.getpid()}.tmp"
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cmd = ["g++", *_FLAGS, "-o", tmp, src, "-lpthread"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
         return True
-    except (subprocess.SubprocessError, FileNotFoundError):
+    except (subprocess.SubprocessError, OSError):
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         return False
 
 
@@ -47,11 +73,11 @@ def load_host_core() -> ctypes.CDLL | None:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-            if not _build():
-                return None
+        path = library_path()
+        if not os.path.exists(path) and not _build(_SRC, path):
+            return None
         try:
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(path)
         except OSError:
             return None
         c = ctypes

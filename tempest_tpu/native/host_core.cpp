@@ -1,6 +1,6 @@
 // host_core — native host-side runtime core for tempest_tpu.
 //
-// The TPU does the DSP; this library makes the *host* side of the streaming
+// The accelerator does the DSP; this library makes the *host* side of the streaming
 // runtime native: lock-free-ish ring buffer for IQ blocks, interleaved-I/Q
 // unpacking/conversion, and envelope precompute — the roles the reference
 // delegates to Julia's threaded runtime (AtomicAbstractSDRs.jl:28-190) and
@@ -8,8 +8,9 @@
 // ABI consumed via ctypes (tempest_tpu/native/__init__.py); a pure-Python
 // fallback exists, this path removes the GIL from the producer hot loop.
 //
-// Build: tempest_tpu/native/__init__.py builds this on first import
-// (g++ -O3 -march=native -std=c++17 -shared -fPIC).
+// Build: tempest_tpu/native/__init__.py builds this on first use
+// (g++ -O3 -std=c++17 -shared -fPIC, portable) into a file keyed by the
+// source and the flags, so an edited source rebuilds.
 
 #include <atomic>
 #include <chrono>
@@ -127,7 +128,7 @@ void iq_int16_to_float32(const int16_t* in, float* out, int64_t n_words,
 }
 
 // Interleaved float32 I/Q -> envelope |z| (AM demod on the host, for
-// host-side fallbacks and validation; the TPU path does this on device).
+// host-side fallbacks and validation; the device path does this on device).
 void iq_envelope_f32(const float* iq, float* env, int64_t n_complex) {
     for (int64_t i = 0; i < n_complex; ++i) {
         float re = iq[2 * i], im = iq[2 * i + 1];

@@ -7,7 +7,7 @@ refresh/line-count estimation that the reference does half-interactively
 or the offline script's first-500-lags argmax for the line count,
 ``production/investigate_data.jl:69-82``).
 
-TPU-native design notes:
+Design notes:
 
 * The envelope is real, so we use ``rfft``/``irfft`` — half the FFT work of
   the reference's complex FFT pair.
@@ -58,11 +58,10 @@ def autocorrelation(
     at lag index ``round(min_delay * fs)``.
 
     FFT length: the reference uses ``min(2 * round(max_delay*fs), len(x))``
-    (``Autocorrelations.jl:27``); we round that *down to a power of two*
-    because XLA lowers non-smooth FFT sizes on TPU as a dense DFT matmul —
-    an O(n²) matrix that exceeds HBM for n in the millions (observed: a
-    333333-point rfft tried to allocate a 444 GB DFT matrix).  The slightly
-    shorter correlation window is statistically irrelevant.
+    (``Autocorrelations.jl:27``); we round that to a power of two, the
+    fastest FFT size on every backend (a non-smooth size was once lowered
+    as a dense DFT matmul — an O(n²) matrix for n in the millions).  The
+    slightly shorter correlation window is statistically irrelevant.
     """
     i_lo = int(round(min_delay * fs))
     i_hi = int(round(max_delay * fs))  # exclusive lag bound

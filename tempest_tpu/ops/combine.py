@@ -11,7 +11,7 @@ envelopes are sample-aligned by construction — no frame registration is
 needed to combine them, and the SNR gain happens BEFORE the nonlinear
 sync/alignment stages, exactly where it helps timing estimation too.
 
-TPU-native design: ONE jitted program channelises the capture (the scan
+Design: ONE jitted program channelises the capture (the scan
 module's big-FFT + static band slices + batched IFFT), takes per-channel
 amplitude envelopes, scores each channel's screen-content power by the
 refresh-comb mass the scanner already uses, detects per-channel modulation
@@ -82,8 +82,8 @@ def combine_core(words, fs, centers, chan_bw, fs_chan, corr_seconds,
     known (the streaming runtime's video mode), the per-channel comb mass is
     read directly at the known frame lags — 15 dot products per channel
     (harmonics 1–5 × a box-3 lag neighbourhood absorbing ppm-level drift)
-    instead of a full FFT autocorrelation + period search per channel
-    (measured in exp/exp_r4_combine_tpu.py).  The mass scale differs from the offline
+    instead of a full FFT autocorrelation + period search per channel.
+    The mass scale differs from the offline
     estimator (no band-median removal / peak widening), which is irrelevant
     for its only use here: the 40 dB relative gate between channels of ONE
     program.  ``None`` (offline default) keeps the full search and honest

@@ -4,14 +4,14 @@ Capability parity with the reference's ``Demodulation.jl``
 (``/root/reference/src/Demodulation.jl:17-35``): AM envelope, inverted
 normalised AM, and the FM discriminator.  These are pure element-wise jnp ops —
 XLA fuses them into whatever consumes them (the envelope feeds straight into
-the resampler gather in the jitted pipeline, so no extra HBM round-trip
-happens), which is the TPU-native replacement for the reference's
-``@inbounds @simd`` loops.
+the resampler in the jitted pipeline, so no extra device-memory round trip
+happens), replacing the reference's ``@inbounds @simd`` loops.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 __all__ = [
@@ -28,15 +28,21 @@ __all__ = [
     "to_planar_iq",
 ]
 
-# One-hot lane matrices for de-interleaving a 128-word row on the MXU:
-# strided minor-axis access (``x.reshape(-1, 2)[:, 0]``) lowers
-# pathologically on TPU — measured 21.6 ms for one 4M-sample block, while
-# the identical movement as a (128, 64) one-hot matmul runs the whole demod
-# in 2.2 ms (exp_demod2, v5e).  The arithmetic is exact up to TPU's
-# bf16-by-default matmul input rounding (~0.2% on int16-squared magnitudes —
-# far below any capture's noise floor; measured no PSNR effect on the judged
-# config).  For bit-exact ingest use ``input_format="iq_planar"`` — its
-# demod is pure elementwise f32.
+# One-hot lane matrices for de-interleaving a 128-word row as a matmul
+# instead of a strided minor-axis access (``x.reshape(-1, 2)[:, 0]``), a
+# formulation chosen for an accelerator whose strided access lowered badly;
+# which one the GPU prefers is not measured yet.  A one-hot matmul is a pure
+# data movement only at full precision (MOVE_PRECISION): at DEFAULT the GPU
+# runs it as a TF32 GEMM, which keeps 10 mantissa bits of I^2 and Q^2, and
+# the resampler's later bf16 cast of the envelope turns those small errors
+# into whole-ulp flips of the cast samples.  On an H100 at 1080p60 that
+# alone moved the default streaming step 0.650% of the image range from the
+# "highest" oracle (0.131% with exact moves; the chain's TF32 budget is
+# 0.5%), and forcing TF32 on these dots gave the same 0.650%.  At full
+# precision the movement is exact on every backend, and it is a small
+# (128, 64) contraction.
+MOVE_PRECISION = jax.lax.Precision.HIGHEST
+
 _PAIRSUM = np.zeros((128, 64), np.float32)
 _PAIRSUM[np.arange(128), np.arange(128) // 2] = 1.0
 _EVEN = np.zeros((128, 64), np.float32)
@@ -61,13 +67,12 @@ def am_envelope_from_iq(iq: jnp.ndarray, scale: float = 1.0) -> jnp.ndarray:
     SDR hardware delivers interleaved int16 I/Q (the reference's ``:short``
     capture format, ``DatBinaryFiles.jl:47-49``); converting to complex64 on
     the host doubles the host→device transfer and forces complex arithmetic
-    on the TPU.  The pair sum ``I^2 + Q^2`` runs as one (128, 64) one-hot
-    matmul over squared 128-word rows (see ``_PAIRSUM`` — the strided
-    de-interleave this replaces measured 10x slower standalone).
+    on the device.  The pair sum ``I^2 + Q^2`` runs as one (128, 64) one-hot
+    matmul over squared 128-word rows (see ``_PAIRSUM``).
     """
     rows, n = _rows128(iq)
     e2 = jnp.dot(rows * rows, jnp.asarray(_PAIRSUM),
-                 preferred_element_type=jnp.float32)
+                 preferred_element_type=jnp.float32, precision=MOVE_PRECISION)
     return scale * jnp.sqrt(e2).reshape(-1)[:n]
 
 
@@ -76,19 +81,17 @@ def am_power_from_iq(iq: jnp.ndarray) -> jnp.ndarray:
     timing estimators feed the autocorrelation (``GUI.jl:70``); no sqrt."""
     rows, n = _rows128(iq)
     e2 = jnp.dot(rows * rows, jnp.asarray(_PAIRSUM),
-                 preferred_element_type=jnp.float32)
+                 preferred_element_type=jnp.float32, precision=MOVE_PRECISION)
     return e2.reshape(-1)[:n]
 
 
 def am_envelope_from_iq_planar(iq2: jnp.ndarray, scale: float = 1.0) -> jnp.ndarray:
     """AM envelope from *planar* I/Q — shape (2, N), row 0 = I, row 1 = Q.
 
-    The interleaved wire format forces a stride-2 minor-axis de-interleave on
-    the device, which this TPU backend lowers pathologically (measured
-    21.6 ms for a 4M-sample block standalone vs ~1 ms planar).  De-interleave
-    once on the HOST (``to_planar_iq`` — a cheap numpy transpose while the
-    device computes the previous block) and the device does only contiguous
-    elementwise work."""
+    The interleaved wire format needs a stride-2 minor-axis de-interleave on
+    the device.  De-interleave once on the HOST instead (``to_planar_iq`` —
+    a cheap numpy transpose while the device computes the previous block)
+    and the device does only contiguous elementwise work."""
     xf = iq2.astype(jnp.float32)
     return scale * jnp.sqrt(xf[0] ** 2 + xf[1] ** 2)
 
@@ -136,13 +139,13 @@ def fm_demod_from_iq(iq: jnp.ndarray) -> jnp.ndarray:
     """FM discriminator straight from interleaved I/Q words (real ops only):
     ``arg(z[n] conj(z[n-1])) = atan2(im_n re_{n-1} - re_n im_{n-1},
     re_n re_{n-1} + im_n im_{n-1})``, out[0] = 0.  The de-interleave runs as
-    two one-hot lane matmuls (see ``_EVEN``/``_ODD``) — the strided form
-    lowers pathologically on TPU."""
+    two one-hot lane matmuls (see ``_EVEN``/``_ODD``) instead of a strided
+    access."""
     rows, n = _rows128(iq)
-    re = jnp.dot(rows, jnp.asarray(_EVEN),
-                 preferred_element_type=jnp.float32).reshape(-1)[:n]
-    im = jnp.dot(rows, jnp.asarray(_ODD),
-                 preferred_element_type=jnp.float32).reshape(-1)[:n]
+    re = jnp.dot(rows, jnp.asarray(_EVEN), preferred_element_type=jnp.float32,
+                 precision=MOVE_PRECISION).reshape(-1)[:n]
+    im = jnp.dot(rows, jnp.asarray(_ODD), preferred_element_type=jnp.float32,
+                 precision=MOVE_PRECISION).reshape(-1)[:n]
     re0, im0 = re[:-1], im[:-1]
     re1, im1 = re[1:], im[1:]
     disc = jnp.arctan2(im1 * re0 - re1 * im0, re1 * re0 + im1 * im0)
@@ -157,8 +160,8 @@ def fm_demod_rows(chans: jnp.ndarray) -> jnp.ndarray:
 
     This is the per-channel demodulator of the FM harmonic-combining front
     (``ops.combine.combine_core(demod="fm")``): the channeliser's complex
-    channels stay on-device (complex host transfers are unimplemented on
-    some TPU runtimes) and the discriminator is pure real elementwise ops —
+    channels stay on-device (no complex dtype crosses the host boundary)
+    and the discriminator is pure real elementwise ops —
     XLA fuses it into whatever consumes the rows."""
     re, im = jnp.real(chans), jnp.imag(chans)
     cross = im[..., 1:] * re[..., :-1] - re[..., 1:] * im[..., :-1]

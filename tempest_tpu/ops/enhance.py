@@ -27,7 +27,7 @@ costs more PSNR than the sharpening wins (measured: unclipped −0.5 dB,
 clipped +1.2 dB on the same image).
 
 Measured gains at the default nsr (aligned PSNR vs ground truth,
-tests/test_enhance.py and exp/exp_r4_restore.py): +0.45 dB on the judged
+tests/test_enhance.py): +0.45 dB on the judged
 1080p60/20 Msps shallow average, +1.1-1.3 dB on deep averages, +2.2 dB on
 oversampled 32 MHz captures; neutral (−0.04) at 10 dB SNR where noise
 dominates blur.

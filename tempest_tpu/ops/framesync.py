@@ -12,11 +12,11 @@ inside the (circular) window ``[c-w, c+w]`` and outside it —
 (the reference's ``fill_β!`` recurrence, ``FrameSynchronisation.jl:94-112``).
 The argmax over (w, c) gives the blanking centre, i.e. the frame offset.
 
-TPU-native design: the reference updates ``S_w`` incrementally in an O(n·w)
-scalar double loop.  Every circular window sum for *all* (c, w) pairs is a
+Design: the reference updates ``S_w`` incrementally in an O(n·w) scalar
+double loop.  Every circular window sum for *all* (c, w) pairs is a
 difference of two entries of one prefix sum over a wrap-padded profile, so the
-whole score matrix is two broadcast gathers + elementwise math — a single XLA
-fusion on the VPU with no sequential dependence (SURVEY.md §7 step 2).
+whole score matrix is static slices + elementwise math — a single XLA fusion
+with no sequential dependence (SURVEY.md §7 step 2).
 
 Bug fixed relative to the reference: ``vsync`` there fills ``β_x`` from the
 column profile but reads the argmax from ``β_y`` and vice versa
@@ -85,8 +85,9 @@ def smooth_profile(profile: jnp.ndarray, kernel_len: int = 5) -> jnp.ndarray:
     circular quantity — the blanking window itself wraps).
 
     Computed as ``kernel_len`` shifted slice-multiplies (exact f32 adds) —
-    TPU f32 convolutions default to bf16 passes, whose quantisation
-    perturbs the downstream argmax and sub-pixel parabola."""
+    an f32 convolution at DEFAULT precision may run reduced-precision passes
+    (TF32 on the GPU), whose quantisation perturbs the downstream argmax and
+    sub-pixel parabola."""
     h = gaussian_kernel(kernel_len)
     half = kernel_len // 2
     n = profile.shape[0]
@@ -110,16 +111,13 @@ def _window_sums(profile: jnp.ndarray, spec: SyncSpec) -> jnp.ndarray:
 
     One prefix sum over the wrap-padded profile, then row w of the matrix is
     ``P[c + w_max+w+1] − P[c + w_max−w]`` — a STATIC SLICE pair per width,
-    stacked.  Pure f32 adds: exact, no MXU involvement.
+    stacked.  Pure f32 adds: exact, no matmul or convolution involved.
 
-    History of this three-way design fight (v5e measurements): an
-    index-matrix read lowers to per-element gathers (~2 ms/block — the
-    pathological TPU pattern); the Toeplitz ±delta-kernel conv is one op but
-    TPU f32 convs run bf16 passes, whose rounding of the large-magnitude
-    prefix corrupted the argmax (−0.8 dB PSNR; Precision.HIGH restored
-    quality but cost 0.85 ms per 36-frame block); the slice stack measured
-    *free* in the resample-stage ladder (XLA folds static slice/concat
-    families) and is bit-exact."""
+    Of the three formulations tried, an index-matrix read lowers to
+    per-element gathers; the Toeplitz ±delta-kernel conv is one op but a
+    reduced-precision conv pass (bf16 then, TF32 on the GPU) rounds the
+    large-magnitude prefix and corrupted the argmax (−0.8 dB PSNR); the
+    slice stack is bit-exact and XLA folds the static slice/concat family."""
     n = spec.n
     w_max = spec.w_max
     prefix = _circular_prefix(profile, w_max)
@@ -207,9 +205,9 @@ def find_blank_subpixel(
     flat = jnp.argmax(beta)
     row, c = flat // n, flat % n
     # Re-evaluate the three scores around the argmax EXACTLY from an f32
-    # prefix sum (six scalar reads): the conv-built score matrix rides TPU's
-    # bf16 conv passes, whose quantisation flattens the tiny curvature the
-    # parabola needs (fractions measured exactly 0 on v5e before this).
+    # prefix sum (six scalar reads): any reduced-precision pass in the score
+    # matrix flattens the tiny curvature the parabola needs (a bf16 conv
+    # once made every fraction exactly 0).
     w = (spec.w_min + row).astype(profile.dtype)
     w_max = spec.w_max
     prefix = _circular_prefix(profile, w_max)
@@ -336,9 +334,8 @@ def shift_matrix(n: int, s: jnp.ndarray, interp: str = "linear",
     Built by broadcast compares against the integer tap positions (the
     framework's device-rebuilt-one-hot trick, cf. StreamingExactPlan) — no
     host round trip, no gathers.  The point: applying the shift as a
-    MATMUL rides the MXU and replaces 4-8 full-image dynamic rolls per
-    frame (measured: the roll formulation cost the sub-pixel chain
-    +1.6 ms/36f over integer sync at 1080p60 on v5e)."""
+    MATMUL replaces 4-8 full-image dynamic rolls per frame.  At DEFAULT
+    precision the GPU runs it in TF32 (10 mantissa bits per operand)."""
     k = jnp.floor(s).astype(jnp.int32)
     f = (s - k).astype(dtype)
     rows = jnp.arange(n, dtype=jnp.int32)[:, None]
@@ -358,8 +355,8 @@ def align_frame_subpixel_matmul(
 ) -> jnp.ndarray:
     """:func:`align_frame_subpixel` as two shift-operator matmuls:
     ``S_y @ image @ S_x^T`` — same separable interpolation (equal up to f32
-    reassociation), but the work lands on the MXU instead of 4-8 dynamic
-    full-image rolls on the VPU.  The reference stops at integer
+    reassociation), but the work is two matmuls instead of 4-8 dynamic
+    full-image rolls.  The reference stops at integer
     ``circshift`` (``GUI.jl:172``)."""
     h, w = image.shape
     Sy = shift_matrix(h, s_y, interp, image.dtype)

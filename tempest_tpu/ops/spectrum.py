@@ -3,8 +3,8 @@
 Capability parity with the reference's ``GetSpectrum`` module
 (``/root/reference/src/GetSpectrum.jl:21-66``), re-designed for XLA: the Welch
 and waterfall estimators reshape the signal into a (segments, fft_size) matrix
-and run one *batched* FFT instead of a Julia per-segment loop — a single fused
-kernel on TPU whose segment axis can also be sharded across devices (the
+and run one *batched* FFT instead of a Julia per-segment loop — a single
+batched FFT whose segment axis can also be sharded across devices (the
 per-segment ``abs2`` accumulation is a plain ``psum``).
 """
 

@@ -7,10 +7,11 @@ arguments or the environment), then builds the same global mesh over all
 devices; the sharded pipelines in ``parallel.sharded`` work unchanged because
 they only speak in terms of the mesh axis.
 
-Topology guidance: the ``"blocks"`` (time) axis should map to the ICI ring so
-the overlap-save halo (``ppermute`` neighbour exchange) stays on-chip-network;
-with an additional DCN dimension put *independent capture streams* (different
-antennas/frequencies) across hosts — no cross-host traffic at all.
+Topology: the GPUs of one host are joined all to all by NVLink, so any
+device order serves the ``"blocks"`` (time) axis equally — the mesh follows
+the algorithm alone.  Across hosts the network is much slower than NVLink:
+put *independent capture streams* (different antennas/frequencies) on the
+cross-host dimension, so no halo crosses it.
 """
 
 from __future__ import annotations
@@ -54,6 +55,6 @@ def is_distributed() -> bool:
 
 
 def global_mesh(axis_name: str = "blocks") -> Mesh:
-    """1-D mesh over *all* devices of *all* processes, in ICI-friendly
-    default device order."""
+    """1-D mesh over *all* devices of *all* processes, in JAX's default
+    device order."""
     return Mesh(np.array(jax.devices()), (axis_name,))

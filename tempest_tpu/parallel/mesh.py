@@ -1,7 +1,7 @@
 """Device-mesh helpers for the sharded pipelines.
 
 The reference is a single-process, three-thread application (SURVEY.md §2
-"parallelism strategies"); its TPU-native generalisation distributes work over
+"parallelism strategies"); its multi-device generalisation distributes work over
 a ``jax.sharding.Mesh``:
 
 * axis ``"blocks"`` — time-block data parallelism: successive IQ blocks (or the

@@ -1,13 +1,13 @@
-"""Multi-chip pipelines: time-block data parallelism with ICI halo exchange,
+"""Multi-device pipelines: time-block data parallelism with halo exchange,
 cross-shard frame averaging, and sharded video-mode hypothesis search.
 
-This is the TPU-native generalisation of the reference's 3-thread pipeline
+This is the multi-device generalisation of the reference's 3-thread pipeline
 (SURVEY.md §2): instead of producer/consumer threads around a lock-based ring
 buffer, the IQ timeline is laid out as ``(n_shards, samples_per_shard)`` and
 sharded across the ``"blocks"`` mesh axis.  Each device reconstructs the frames
 inside its shard; the only cross-device traffic is
 
-* a *halo exchange* (``lax.ppermute`` over ICI) handing each device the first
+* a *halo exchange* (``lax.ppermute``) handing each device the first
   ``overlap`` samples of its right neighbour, so frame cuts that straddle a
   shard boundary see contiguous signal (overlap-save; SURVEY.md §5
   "long-context/sequence parallelism" — the reference instead cuts frames
@@ -118,8 +118,8 @@ def sharded_reconstruct_fn(
 
     Returns ``step(iq_shards, ema, alpha)`` with ``iq_shards`` of shape
     ``(n_shards, shard_samples)`` sharded over ``axis`` — consecutive,
-    *non-overlapping* spans of the IQ timeline (the halo travels over ICI, the
-    host never duplicates samples).  ``n_shards`` must equal the mesh axis
+    *non-overlapping* spans of the IQ timeline (the halo travels between
+    devices, the host never duplicates samples).  ``n_shards`` must equal the mesh axis
     size.  The timeline is treated as circular (file replay loops), so the
     last shard's halo wraps to the first — matching the ``:radiosim``
     steady state.
@@ -244,7 +244,7 @@ def sharded_streaming_reconstruct_fn(
     * **True continuation tail.** The last shard's halo cannot come from a
       neighbour (its right neighbour is the NEXT block), so the step takes
       the next block's first ``overlap`` samples as a replicated ``tail``
-      input; shards 0..n-2 still receive their halo over ICI
+      input; shards 0..n-2 still receive their halo from their neighbour
       (``lax.ppermute``).  No circular wrap, no phase shear at block
       boundaries.
 
@@ -280,8 +280,7 @@ def sharded_streaming_reconstruct_fn(
             "(traced fractional offsets) or resampler='mxu3' with "
             "phase_bins>0 (quantised tables at matmul speed)")
     if quantised and config.fuse_demod_cut:
-        raise ValueError("fuse_demod_cut is a single-chip formulation "
-                         "(and measured negative, exp/exp_r4_bookends)")
+        raise ValueError("fuse_demod_cut is a single-device formulation")
     n_shards = mesh.shape[axis]
     fs = config.sample_rate
     mode = config.mode
@@ -299,8 +298,8 @@ def sharded_streaming_reconstruct_fn(
             f"or fewer frames per shard")
 
     def _extend(sig, tail):
-        """This shard's span + its halo: from the right neighbour over ICI,
-        or — for the last shard — the next block's head (the tail)."""
+        """This shard's span + its halo: from the right neighbour, or — for
+        the last shard — the next block's head (the tail)."""
         halo = sig[: u * overlap]
         perm = [(i, (i - 1) % n_shards) for i in range(n_shards)]
         halo_from_right = jax.lax.ppermute(halo, axis, perm)
@@ -550,8 +549,7 @@ def mode_search_static(
     ``frames_to_screens_mxu3_exact`` pattern, stacked over candidates
     instead of frames) and the whole hypothesis set runs as a handful of
     batched einsums.  The dynamic-geometry resampler it replaces scores via
-    per-element gathers — the pathological TPU pattern, measured seconds
-    per call on v5e — because one executable must serve every geometry;
+    per-element gathers because one executable must serve every geometry;
     here the hypothesis set is baked into the executable instead (a new
     candidate set is a recompile, which the jit cache absorbs per band).
 
@@ -762,8 +760,8 @@ def sharded_mode_search(
     need = int(starts[-1]) + frame_len
     interleaved = False
     if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
-        # Keep the host->device boundary real (complex transfers are
-        # unsupported on some TPU runtimes and never necessary).
+        # Keep the host->device boundary real (no complex dtype crosses
+        # it; half the bytes for int16 words).
         iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
         interleaved = True
     iq = jnp.asarray(iq)
@@ -1245,7 +1243,7 @@ def sharded_streaming_combine_front(
     This is the front half of :func:`sharded_combined_reconstruct_fn`
     (same ``_combine_local_builder`` locals: all_gather of the comb
     masses, one-hot-psum anchor envelope, psum fusion — ~2·M floats of
-    ICI per call regardless of K) split out as its own program, because a
+    inter-device traffic per call regardless of K) split out as its own program, because a
     streaming step consumes the PREVIOUS block's envelope while this
     block's is being fused."""
     from ..ops.scan import _channel_geometry, check_excise_demod

@@ -5,8 +5,8 @@ Capability parity with the reference's ``ScreenRenderer`` module
 interface, min-max normalisation (``fullScale!`` ``:35-39``), a terminal
 grayscale view (``TerminalRendererScreen`` ``:45-58``), and the vsync
 crosshair overlay (``displayScreen_vsync!`` ``:182-187``).  The reference's
-GLMakie GUI (an OpenGL window) is deliberately *not* ported — headless TPU
-hosts have no display; the live surfaces here are the terminal renderer and
+GLMakie GUI (an OpenGL window) is deliberately *not* ported — headless
+accelerator hosts have no display; the live surfaces here are the terminal renderer and
 file sinks (PNG via zlib, no external imaging dependency), plus the CLI's
 status HUD.
 """
@@ -25,6 +25,7 @@ __all__ = [
     "write_pgm",
     "png_bytes",
     "write_png",
+    "read_png",
     "psnr",
     "aligned_psnr",
     "TerminalRenderer",
@@ -121,6 +122,32 @@ def write_png(img: np.ndarray, path: str, invert: bool = False) -> None:
     """Minimal grayscale PNG writer (zlib + struct, no imaging library)."""
     with open(path, "wb") as f:
         f.write(png_bytes(img, invert))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read back a PNG as :func:`write_png` writes it (8-bit grayscale,
+    unfiltered rows) into a ``uint8`` (h, w) array; other PNGs raise."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    if hdr is None or hdr[2:] != (8, 0, 0, 0, 0):
+        raise ValueError(f"{path}: only 8-bit grayscale PNGs are supported")
+    w, h = hdr[0], hdr[1]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered PNG rows are not supported")
+    return rows[:, 1:].copy()
 
 
 def _maybe_crosshair(img: np.ndarray, info: dict | None, on: bool) -> np.ndarray:

@@ -10,7 +10,7 @@ as a line-command loop — the same operations with no GUI toolkit: commands
 arrive on stdin (or any iterable — scripted sessions and tests), dispatch
 between blocks, and the view/HUD refresh as the stream runs.
 
-Why a command loop and not a GUI port: the runtime is headless-first (TPU
+Why a command loop and not a GUI port: the runtime is headless-first (accelerator
 hosts), every control is equally scriptable and testable, and a remote
 operator gets the full surface over ssh.
 """

@@ -9,7 +9,8 @@ jitted step replaced by the time-sharded multi-chip step
 (:func:`~tempest_tpu.parallel.sharded.sharded_streaming_reconstruct_fn`):
 each host ring block is split into ``n_shards`` consecutive time spans laid
 across the mesh, frame cuts tick on the same global carry-phase grid, halos
-ride ICI (``ppermute``), and the EMA folds associatively across shards.
+travel between neighbouring devices (``ppermute``), and the EMA folds
+associatively across shards.
 
 Semantics are EXACTLY "the single-chip runtime on ``block/n_shards``-sample
 blocks, ``n_shards`` of them per dispatch": same per-span frame count, same

@@ -1,8 +1,8 @@
 """Host-side real-time plumbing: ring buffer, rate meters.
 
 Re-designs the reference's ``AtomicAbstractSDRs`` concurrency layer
-(``/root/reference/src/AtomicAbstractSDRs.jl:28-341``) for the TPU runtime's
-host side.  Semantics preserved:
+(``/root/reference/src/AtomicAbstractSDRs.jl:28-341``) for the streaming
+runtime's host side.  Semantics preserved:
 
 * bounded ring of fixed-size IQ blocks, *overwrite-oldest* on overflow — the
   radio is never blocked; overflows are counted, not prevented

@@ -1,6 +1,6 @@
 """Streaming runtime: source → ring → jitted reconstruction → frame sink.
 
-The TPU-native re-design of the reference's live control plane
+The re-design of the reference's live control plane
 (``/root/reference/src/GUI.jl:120-234,286-664``).  The reference runs three
 cooperating threads (SDR producer, DSP consumer, renderer) stitched together
 by global Makie Observables; here the same pipeline is an explicit object:
@@ -197,15 +197,15 @@ class StreamingRuntime:
             ),
             subsample_align=self.fidelity,
             do_align=not self.fidelity,
-            # Sub-pixel registration (MXU shift operators) whenever the sync
-            # stage runs: measured FASTER than integer rolls and +0.4-0.5 dB
-            # (exp/exp_r4_subpixel.py) — the quality chain is the default.
+            # Sub-pixel registration (shift-operator matmuls) whenever the
+            # sync stage runs: +0.4-0.5 dB over integer rolls — the quality
+            # chain is the default.
             align_subpixel=not self.fidelity,
             phase_bins=self.fidelity_bins if self.fidelity else 0,
-            # Quantised fidelity defaults to the bf16 weights einsum: on TPU
-            # it is bit-exact (DEFAULT-precision f32 matmuls run bf16 MXU
-            # passes anyway) and never slower — and `cli warmup` precompiles
-            # exactly this program.  Overridable via config_overrides.
+            # Quantised fidelity defaults to the bf16 weights einsum (half
+            # the weight bytes at <= 2^-9 coefficient rounding; `cli warmup`
+            # precompiles exactly this program).  Overridable via
+            # config_overrides.
             einsum_bf16=bool(self.fidelity and self.fidelity_bins),
         )
         if self._overrides:

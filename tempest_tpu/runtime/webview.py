@@ -4,7 +4,7 @@ The reference's defining surface is ONE live window — the reconstructed
 image as a heatmap, two clickable correlation panels, and a control column,
 all updating together (``/root/reference/src/GUI.jl:296-356``,
 ``src/ScreenRenderer.jl:93-148``).  This module is that surface for headless
-TPU hosts, with zero dependencies beyond the standard library: a localhost
+accelerator hosts, with zero dependencies beyond the standard library: a localhost
 HTTP server on the streaming runtime serving
 
 * ``/``             the operator page (live image + correlation panels +

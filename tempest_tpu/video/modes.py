@@ -1,6 +1,6 @@
 """Video-mode domain model: standard display timings and nearest-mode lookup.
 
-TPU-native re-design of the reference's video-mode database
+Re-design of the reference's video-mode database
 (``/root/reference/src/VideoConfigurations.jl:1-146``).  A ``VideoMode`` holds the
 *total* pixel geometry of a display timing — ``width`` is pixels per line
 including horizontal blanking, ``height`` is lines per frame including vertical

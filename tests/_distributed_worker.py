@@ -6,7 +6,7 @@ virtual CPU devices; together they form the 4-device global mesh.  The worker
 runs the real multi-host bootstrap (``tempest_tpu.parallel.distributed``),
 executes one sharded reconstruction step across processes, and prints a
 checksum the parent compares against a single-process 4-device run of the
-same program — proving "multi-host: same program" (docs/performance.md).
+same program — proving "multi-host: same program".
 """
 
 import os

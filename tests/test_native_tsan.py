@@ -36,3 +36,44 @@ def test_ring_tsan_stress(tmp_path):
         f"{run.stdout[-400:]}\n{run.stderr[-1200:]}"
     )
     assert run.stdout.startswith("OK")
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no C++ toolchain")
+def test_host_core_rebuilds_under_a_new_key(tmp_path, monkeypatch):
+    """A library keyed by other source or other flags is never loaded:
+    loading builds one under the current key."""
+    from tempest_tpu import native
+
+    src = tmp_path / "host_core.cpp"
+    shutil.copyfile(os.path.join(NATIVE, "host_core.cpp"), src)
+    monkeypatch.setattr(native, "_SRC", str(src))
+
+    def fresh_load():
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_tried", False)
+        lib = native.load_host_core()
+        assert lib is not None
+        return lib
+
+    # A library left by a build with other flags.
+    flags = native._FLAGS
+    monkeypatch.setattr(native, "_FLAGS", (*flags, "-DSTALE_BUILD"))
+    stale = native.library_path(str(src))
+    assert fresh_load()._name == stale
+    monkeypatch.setattr(native, "_FLAGS", flags)
+    here = native.library_path(str(src))
+    assert here != stale and not os.path.exists(here)
+    assert fresh_load()._name == here
+    # An edited source is a new key too: rebuilt, not the old binary.
+    with open(src, "a") as f:
+        f.write("\n// edited\n")
+    edited = native.library_path(str(src))
+    assert edited not in (here, stale)
+    lib = fresh_load()
+    assert lib._name == edited
+    assert sorted(p.name for p in (tmp_path / "_build").glob("*.so")) == sorted(
+        os.path.basename(p) for p in (stale, here, edited))
+    # The rebuilt library works.
+    h = lib.ring_create(8, 2)
+    assert h and lib.ring_available(h) == 0
+    lib.ring_destroy(h)

@@ -670,7 +670,7 @@ def test_cli_search(tmp_path, capsys):
         "synth", "--mode", "640x480 @ 60Hz", "--fs", str(FS),
         "--seconds", "0.2", "--snr", "20", "--out", str(cap),
     ]) == 0
-    # Default is the static-table path (~90x faster on TPU, same winners).
+    # Default is the static-table path (same winners as the dynamic one).
     assert cli_main(["search", str(cap), "--fs", str(FS), "--tol", "0.5"]) == 0
     text = capsys.readouterr().out
     assert "static-table" in text

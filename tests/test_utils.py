@@ -160,6 +160,45 @@ def test_profiler_trace_writes(tmp_path):
     assert found, "profiler trace produced no files"
 
 
+def test_profile_stages_counts_matmuls_in_their_stage(tmp_path):
+    """A matmul under a named scope is charged to that stage, not "other"."""
+    import jax
+    import jax.numpy as jnp
+
+    from tempest_tpu.utils.profiling import profile_stages
+
+    def f(a, b):
+        with jax.named_scope("demod"):
+            e = jnp.dot(a * a, b, precision="highest")
+        with jax.named_scope("ema"):
+            return jnp.tanh(e) + 1.0
+
+    args = (jnp.ones((512, 128)), jnp.ones((128, 64)))
+    st = profile_stages(jax.jit(f).lower(*args), args, str(tmp_path),
+                        ("demod", "ema"))
+    assert st["events"] > 0
+    assert st["demod"] > 0 and st["ema"] > 0
+    assert st["total"] == pytest.approx(st["demod"] + st["ema"] + st["other"])
+
+
+def test_hlo_op_names_library_gemm():
+    """GPU library GEMMs are custom calls whose backend_config follows the
+    metadata; their instruction still maps to its scope."""
+    from tempest_tpu.utils.profiling import _hlo_op_names
+
+    text = (
+        '  %cublas-gemm.3 = (f32[96,64]{1,0}, s8[0]{0}) custom-call('
+        'f32[96,128]{1,0} %a, f32[128,64]{1,0} %b), '
+        'custom_call_target="__cublas$gemm", metadata={op_name="jit(step)'
+        '/demod/dot_general" source_file="x.py" source_line=3}, '
+        'backend_config={"gemm_backend_config":{"alpha_real":1}}\n'
+        '  ROOT %loop_add_fusion = f32[96,64]{1,0} fusion(%x), kind=kLoop, '
+        'calls=%fused, metadata={op_name="jit(step)/vmap(sync)/add"}\n')
+    assert _hlo_op_names(text) == {
+        "cublas-gemm.3": "jit(step)/demod/dot_general",
+        "loop_add_fusion": "jit(step)/vmap(sync)/add"}
+
+
 def test_file_renderer(tmp_path):
     import numpy as np
 
@@ -176,13 +215,78 @@ def test_file_renderer(tmp_path):
 def test_roofline_report():
     import jax.numpy as jnp
 
-    from tempest_tpu.utils.roofline import RooflineReport, roofline
+    from tempest_tpu.utils.roofline import RooflineReport, device_peaks, roofline
 
+    peaks = device_peaks("NVIDIA H100 80GB HBM3")
     rep = roofline(lambda a, b: a @ b, jnp.ones((256, 256)), jnp.ones((256, 256)))
     assert rep.flops > 0
-    assert rep.bound() in ("compute", "memory")
-    assert rep.speed_of_light_s() > 0
-    assert "GFLOP" in rep.summary(measured_s=1e-3)
-    # Hand-built report sanity: 1 GFLOP over 1 GB is memory-bound on v5e.
+    assert rep.bound(peaks) in ("compute", "memory")
+    assert rep.speed_of_light_s(peaks) > 0
+    assert "GFLOP" in rep.summary(peaks, measured_s=1e-3)
+    # Hand-built report sanity: 1 GFLOP over 1 GB is memory-bound on an H100
+    # (bf16 ridge ~295 flop/B), and its light-speed time is the HBM time.
     r = RooflineReport(flops=1e9, bytes_accessed=1e9, transcendentals=0)
-    assert r.bound() == "memory"
+    assert r.bound(peaks) == "memory"
+    assert r.speed_of_light_s(peaks) == pytest.approx(1e9 / 3.35e12)
+
+
+@pytest.mark.parametrize("compute,flops", [("bf16", 989e12), ("tf32", 495e12),
+                                           ("f32", 67e12)])
+def test_device_peaks_h100(compute, flops):
+    from tempest_tpu.utils.roofline import device_peaks
+
+    p = device_peaks("NVIDIA H100 80GB HBM3", compute)
+    assert p == {"flops_per_s": flops, "bytes_per_s": 3.35e12}
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", "NVIDIA H100"])
+def test_device_peaks_unknown_device_raises(kind):
+    """No default peak: a device missing from the table is an error (the
+    CPU test backend included)."""
+    from tempest_tpu.utils.roofline import device_peaks
+
+    with pytest.raises(ValueError, match="no published peaks"):
+        device_peaks(kind)
+
+
+def test_device_peaks_default_is_the_running_device():
+    import jax
+
+    from tempest_tpu.utils.roofline import device_peaks
+
+    assert jax.devices()[0].platform == "cpu"
+    with pytest.raises(ValueError, match=repr(jax.devices()[0].device_kind)):
+        device_peaks()
+
+
+def test_compile_cache_honours_env(monkeypatch):
+    import jax
+
+    from tempest_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/somewhere/else")
+    assert compile_cache.configure_compile_cache() == "/somewhere/else"
+    assert jax.config.jax_compilation_cache_dir == before  # nothing set in code
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "")
+    assert compile_cache.configure_compile_cache() == ""
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_fixed_in_checkout(monkeypatch):
+    import os
+
+    import jax
+
+    from tempest_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        first = compile_cache.configure_compile_cache()
+        assert compile_cache.configure_compile_cache() == first
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert first == os.path.join(repo, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == first
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
